@@ -64,10 +64,10 @@ def _traced(x, **kw):
 
 _mh.process_allgather = _traced
 
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.parallel import distributed
-from mini_parallel_tpu.parallel.mesh import initialize_distributed
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.parallel import distributed
+from mini_parallel.parallel.mesh import initialize_distributed
+from mini_parallel.utils.config import Config
 
 initialize_distributed()  # must precede ANY backend use (CLAUDE.md)
 out_path = sys.argv[1]

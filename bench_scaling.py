@@ -4,10 +4,9 @@ BASELINE.json measures at "1 chip, 1 host, N>=2 hosts" with a >=80% linear
 scaling target. This harness measures the sharded WGS step at every mesh
 size available and reports per-size throughput + scaling efficiency.
 
-On this dev machine only ONE physical TPU chip is attached, so multi-chip
-numbers here come from the virtual CPU mesh (functional, NOT performance-
-representative — labeled as such in the output). On a real slice, run as-is:
-it uses whatever jax.devices() provides per process, and on multiple hosts
+On a virtual CPU mesh the numbers are functional, NOT performance-
+representative — labeled as such in the output. On GPUs, run as-is: it
+uses whatever jax.devices() provides per process, and on multiple hosts
 each process reports its local shard throughput.
 
 Besides per-size wall clocks this emits *evidence rows*: every mesh size's
@@ -56,14 +55,14 @@ def main() -> None:
 
     if args.cpu:
         jax.config.update("jax_platforms", "cpu")
-    from mini_parallel_tpu.device import enable_compile_cache
+    from mini_parallel.device import enable_compile_cache
 
     enable_compile_cache()
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.ops import encode
-    from mini_parallel_tpu.parallel import mesh as mesh_mod
-    from mini_parallel_tpu.parallel import pipeline
+    from mini_parallel.ops import encode
+    from mini_parallel.parallel import mesh as mesh_mod
+    from mini_parallel.parallel import pipeline
 
     n_dev = jax.device_count()
     rng = np.random.default_rng(0)
@@ -124,7 +123,7 @@ def main() -> None:
         {
             "metric": "wgs_step_scaling",
             "platform": jax.devices()[0].platform,
-            "performance_representative": jax.devices()[0].platform == "tpu",
+            "performance_representative": jax.devices()[0].platform == "gpu",
             "reads": B_common,
             "checked_stats": sorted(local_stats),
             "rows": [
@@ -139,14 +138,12 @@ def main() -> None:
     # sw_score_long_sharded) runs K + C - 1 stages for K b-strips over C
     # chips; a chip is useful in K of them, so pipeline utilization is
     # exactly K/(K+C-1) and the per-stage boundary exchange ships
-    # state_tiles x (sb x 128) x 4 bytes over ICI (3 tiles linear / 5
+    # state_arrays x W x 4 bytes between devices (3 arrays linear / 5
     # affine). These are structural constants of the implementation (not
     # wall-clock estimates), reported so scaling reviews can check the
     # comm/compute ratio at any geometry.
-    from mini_parallel_tpu.ops.sw_long import DEFAULT_SB, LANES
+    from mini_parallel.ops.sw_long import DEFAULT_WIDTH as W
 
-    sb = DEFAULT_SB
-    W = sb * LANES
     for n_len in (500_000, 2_000_000):
         K = -(-n_len // W)
         rows2 = []
@@ -155,8 +152,8 @@ def main() -> None:
                 "chips": C,
                 "stages": K + C - 1,
                 "pipeline_utilization": round(K / (K + C - 1), 4),
-                "halo_bytes_per_stage_linear": 3 * sb * LANES * 4,
-                "halo_bytes_per_stage_affine": 5 * sb * LANES * 4,
+                "halo_bytes_per_stage_linear": 3 * W * 4,
+                "halo_bytes_per_stage_affine": 5 * W * 4,
             })
         emit({
             "metric": "long_pair_pipeline_model",

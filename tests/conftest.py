@@ -1,27 +1,32 @@
 """Test harness: force JAX onto an 8-device virtual CPU mesh.
 
-Multi-chip TPU hardware is not available in CI; all sharding/collective logic
-is exercised on XLA's host platform with 8 virtual devices (the pattern
-recommended for testing jax.sharding code without a pod slice). Must run
-before any JAX backend initialization, hence module-level in conftest.
+All sharding/collective logic is exercised on XLA's host platform with 8
+virtual devices. Must run before any JAX backend initialization, hence
+module-level in conftest. Tests marked ``gpu`` need the card: when JAX is
+already imported (``chip_smoke.py`` runs them in its own process, on the GPU
+it has opened) the platform is left alone, and the ``gpu`` fixture skips
+them anywhere else.
 """
 
 import os
+import sys
 import tempfile
 
 os.environ["XLA_FLAGS"] = (
     os.environ.get("XLA_FLAGS", "") + " --xla_force_host_platform_device_count=8"
 ).strip()
 
-# keep test benchmark rows out of the judge-facing benchmark_results/ record
-# (round-2 hygiene finding: device=cpu test rows polluted the aggregate)
+# keep test benchmark rows out of the benchmark_results/ record
 os.environ.setdefault(
     "MPT_RESULTS_DIR", tempfile.mkdtemp(prefix="mpt_test_results_")
 )
 
+_host_chose_platform = "jax" in sys.modules
+
 import jax  # noqa: E402
 
-jax.config.update("jax_platforms", "cpu")
+if not _host_chose_platform:
+    jax.config.update("jax_platforms", "cpu")
 
 import numpy as np  # noqa: E402
 import pytest  # noqa: E402
@@ -35,6 +40,14 @@ def rng():
     # round 2: a k-mer test shifted the genotype test's random reference
     # into an ambiguous-insertion-placement corner)
     return np.random.default_rng(0)
+
+
+@pytest.fixture()
+def gpu():
+    """For tests of code that runs only on the card (a CUDA kernel has no
+    interpret mode): skip unless JAX's default backend is a GPU."""
+    if jax.default_backend() != "gpu":
+        pytest.skip("needs a GPU: CUDA kernels have no CPU or interpret mode")
 
 
 @pytest.fixture(scope="session")

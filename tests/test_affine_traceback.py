@@ -3,8 +3,8 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mini_parallel_tpu.ops import encode, sw
-from mini_parallel_tpu.ops.sw_traceback import (
+from mini_parallel.ops import encode, sw
+from mini_parallel.ops.sw_traceback import (
     sw_affine_align_batch,
     sw_affine_align_numpy,
     sw_affine_positions_batch,
@@ -99,65 +99,63 @@ def test_affine_positions_match_host_walk():
         np.testing.assert_array_equal(pos[k], want, err_msg=f"pair {k}")
 
 
-def test_affine_pallas_moves_match_scan():
-    """sw_affine_moves_batch_pallas (interpret) == sw_affine_moves_batch:
-    scores, argmax (bd, bi), and every valid 4-bit move in the packed
-    tensor (h-src | eext<<2 | fext<<3)."""
-    from mini_parallel_tpu.ops.sw_traceback import (
-        PACK8, sw_affine_moves_batch, sw_affine_moves_batch_pallas)
+def _positions_from_cigar(aln, width=64):
+    want = np.full(width, -1, np.int32)
+    if aln.score > 0:
+        qi, rj = aln.query_start, aln.ref_start
+        for count, op in aln.cigar_ops():
+            if op == "M":
+                want[qi:qi + count] = np.arange(rj, rj + count)
+                qi += count
+                rj += count
+            elif op == "I":
+                qi += count
+            else:
+                rj += count
+    return want
+
+
+def test_affine_argmax_matches_golden_endpoint():
+    """sw_affine_moves_batch's (best, diagonal, row) argmax is the golden
+    DP's best cell under the shared tie-break (first diagonal, then
+    smallest row)."""
+    from mini_parallel.ops.sw_traceback import sw_affine_moves_batch
 
     rng = np.random.default_rng(559)
-    B, M, N = 16, 24, 40
-    a = np.full((B, M), int(encode.PAD_A), np.uint8)
-    b = np.full((B, N), int(encode.PAD_B), np.uint8)
-    base = np.frombuffer(b"ACGT", np.uint8)
-    for i in range(B):
-        la = int(rng.integers(5, M)); lb = int(rng.integers(5, N))
-        a[i, :la] = rng.choice(base, la)
-        b[i, :lb] = rng.choice(base, lb)
-    best0, bd0, bi0, mv0 = (np.asarray(x) for x in sw_affine_moves_batch(
-        jnp.asarray(a), jnp.asarray(b)))
-    best1, bd1, bi1, packed = (np.asarray(x) for x in
-                               sw_affine_moves_batch_pallas(
-                                   jnp.asarray(a), jnp.asarray(b),
-                                   interpret=True))
-    assert (best0 == best1).all()
-    assert (bd0 == bd1).all() and (bi0 == bi1).all()
-    D = M + N - 1
-    for d in range(D):
-        slab = ((packed[d // PACK8].astype(np.uint32)
-                 >> np.uint32(4 * (d % PACK8))) & 15)[:M, :B].T
-        j = d - np.arange(M)[None, :]
-        valid = (j >= 0) & (j < N)
-        assert ((mv0[d] == slab) | ~valid).all(), d
+    pairs = _indel_pairs(rng)
+    a, b = _pad([p[0] for p in pairs], [p[1] for p in pairs])
+    best, bd, bi, _ = (np.asarray(x) for x in sw_affine_moves_batch(a, b))
+    for k, (qa, qb) in enumerate(pairs):
+        want = sw_affine_align_numpy(qa, qb)
+        assert best[k] == want.score, k
+        if want.score > 0:
+            assert bi[k] == want.query_end - 1, k
+            assert bd[k] == want.query_end + want.ref_end - 2, k
 
 
-def test_affine_pallas_positions_match_scan():
-    """sw_affine_positions_batch_pallas == sw_affine_positions_batch on
-    indel-bearing pairs (the production gapped-affine traceback route)."""
-    from mini_parallel_tpu.ops.sw_traceback import (
-        sw_affine_positions_batch_pallas)
-
+def test_affine_positions_match_golden_walk():
+    """sw_affine_positions_batch (the gapped-affine pipeline's traceback)
+    == the golden Gotoh walk on indel-bearing pairs."""
     rng = np.random.default_rng(560)
     pairs = _indel_pairs(rng)
     a, b = _pad([p[0] for p in pairs], [p[1] for p in pairs])
-    s0, p0 = (np.asarray(x) for x in sw_affine_positions_batch(a, b))
-    s1, p1 = (np.asarray(x) for x in sw_affine_positions_batch_pallas(a, b))
-    assert (s0 == s1).all()
-    np.testing.assert_array_equal(p0, p1)
+    s, pos = (np.asarray(x) for x in sw_affine_positions_batch(a, b))
+    for k, (qa, qb) in enumerate(pairs):
+        want = sw_affine_align_numpy(qa, qb)
+        assert s[k] == want.score, k
+        np.testing.assert_array_equal(pos[k], _positions_from_cigar(want),
+                                      err_msg=f"pair {k}")
 
 
-def test_affine_pallas_positions_nondefault_gaps():
-    """Parity holds for non-default (gap_open, gap_extend) too."""
-    from mini_parallel_tpu.ops.sw_traceback import (
-        sw_affine_positions_batch_pallas)
-
+def test_affine_positions_nondefault_gaps():
+    """The same parity holds for non-default (gap_open, gap_extend)."""
     rng = np.random.default_rng(561)
     pairs = _indel_pairs(rng, n=8)
     a, b = _pad([p[0] for p in pairs], [p[1] for p in pairs])
-    s0, p0 = (np.asarray(x) for x in sw_affine_positions_batch(
+    s, pos = (np.asarray(x) for x in sw_affine_positions_batch(
         a, b, gap_open=-5, gap_extend=-2))
-    s1, p1 = (np.asarray(x) for x in sw_affine_positions_batch_pallas(
-        a, b, gap_open=-5, gap_extend=-2))
-    assert (s0 == s1).all()
-    np.testing.assert_array_equal(p0, p1)
+    for k, (qa, qb) in enumerate(pairs):
+        want = sw_affine_align_numpy(qa, qb, gap_open=-5, gap_extend=-2)
+        assert s[k] == want.score, k
+        np.testing.assert_array_equal(pos[k], _positions_from_cigar(want),
+                                      err_msg=f"pair {k}")

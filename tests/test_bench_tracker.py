@@ -8,7 +8,7 @@ counter, benchmark.rs:429-436) and no hardcoded utilization placeholders
 import json
 import os
 
-from mini_parallel_tpu.utils.bench_tracker import (
+from mini_parallel.utils.bench_tracker import (
     BenchmarkTracker,
     next_run_number,
 )
@@ -35,7 +35,7 @@ def test_run_numbers_scanned_from_disk(tmp_path, monkeypatch):
 def test_result_fields_measured_or_null(tmp_path, monkeypatch):
     monkeypatch.chdir(tmp_path)
     d = str(tmp_path / "benchmark_results")
-    t = BenchmarkTracker("full_wgs", 500, device="TPU v5e", mode="sw",
+    t = BenchmarkTracker("full_wgs", 500, device="NVIDIA H100 80GB HBM3", mode="sw",
                          results_dir=d)
     t.update(2, 200, 30000, 7)
     res = t.finish(host_info={"banner": "x"})
@@ -73,7 +73,7 @@ def test_legacy_aggregate_appends(tmp_path, monkeypatch):
 
 
 def test_claim_run_number_reserves_atomically(tmp_path):
-    from mini_parallel_tpu.utils.bench_tracker import claim_run_number
+    from mini_parallel.utils.bench_tracker import claim_run_number
 
     d = str(tmp_path / "r")
     # concurrent claims never collide: each claim reserves its file
@@ -88,7 +88,7 @@ def test_claim_run_number_reserves_atomically(tmp_path):
 
 
 def test_legacy_aggregate_follows_results_dir(tmp_path):
-    from mini_parallel_tpu.utils.bench_tracker import BenchmarkTracker
+    from mini_parallel.utils.bench_tracker import BenchmarkTracker
 
     d = tmp_path / "deep" / "results"
     t = BenchmarkTracker("wgs", 100, device="cpu", results_dir=str(d))
@@ -136,11 +136,11 @@ def test_annotate_run_adds_fields(tmp_path):
     import json
     import os
 
-    from mini_parallel_tpu.utils.bench_tracker import (
+    from mini_parallel.utils.bench_tracker import (
         BenchmarkTracker, annotate_run)
 
     rd = str(tmp_path / "benchmark_results")
-    t = BenchmarkTracker("full_wgs", 10, device="tpu", results_dir=rd)
+    t = BenchmarkTracker("full_wgs", 10, device="gpu", results_dir=rd)
     t.update(1, 100, 15000, 7)
     r = t.finish(host_info={})
     assert annotate_run(r.run_number, {"monitor_summary": {"p": 1}},

@@ -7,8 +7,8 @@ from __future__ import annotations
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.cli import main
-from mini_parallel_tpu.io import fasta, fastq
+from mini_parallel.cli import main
+from mini_parallel.io import fasta, fastq
 from tests.conftest import random_dna
 
 
@@ -116,7 +116,7 @@ def test_kmer_out_flag(capsys, monkeypatch, fixtures):
 
 
 def test_long_align_modes(capsys, monkeypatch, fixtures, rng):
-    from mini_parallel_tpu.ops.sw_long import (sw_affine_numpy_blocked,
+    from mini_parallel.ops.sw_long import (sw_affine_numpy_blocked,
                                                sw_score_numpy_blocked)
 
     tmp = fixtures["tmp"]

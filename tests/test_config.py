@@ -1,6 +1,6 @@
 import pytest
 
-from mini_parallel_tpu.utils import config
+from mini_parallel.utils import config
 
 
 def test_chunk_size_mandatory():

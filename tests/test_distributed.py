@@ -1,10 +1,10 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fastq
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.parallel import distributed
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.io import fastq
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.parallel import distributed
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 
@@ -120,7 +120,7 @@ def test_chunk_stride_resume_owned_index_space(tmp_path, rng):
 def test_stripe_with_retries_recovers(tmp_path, rng, monkeypatch):
     """A transient failure mid-stripe resumes from the in-memory chunk
     checkpoint and completes exactly."""
-    from mini_parallel_tpu.parallel.distributed import _stripe_with_retries
+    from mini_parallel.parallel.distributed import _stripe_with_retries
 
     cfg = Config(wgs_data_dir=str(tmp_path), sample_id="S", lanes=1,
                  reads_per_lane=1, chunk_size_reads=4, read_pad=64)
@@ -167,8 +167,8 @@ def test_stripe_checkpoint_survives_process_restart(tmp_path, rng, monkeypatch):
     """Stripe progress persists via CheckpointState: a host CRASH (fresh
     process, in-memory partial lost) resumes from the on-disk owned-chunk
     checkpoint instead of re-processing the stripe (advisor r2 finding)."""
-    from mini_parallel_tpu.parallel.distributed import _stripe_with_retries
-    from mini_parallel_tpu.utils.checkpoint import CheckpointState
+    from mini_parallel.parallel.distributed import _stripe_with_retries
+    from mini_parallel.utils.checkpoint import CheckpointState
 
     cfg = Config(wgs_data_dir=str(tmp_path), sample_id="S", lanes=1,
                  reads_per_lane=1, chunk_size_reads=4, read_pad=64)

@@ -1,7 +1,7 @@
 import numpy as np
 import jax.numpy as jnp
 
-from mini_parallel_tpu.ops import encode
+from mini_parallel.ops import encode
 
 
 def test_pad_batch_shapes_and_lengths():

@@ -3,7 +3,7 @@ import io
 
 import pytest
 
-from mini_parallel_tpu.io import fastq
+from mini_parallel.io import fastq
 
 
 @pytest.fixture

@@ -12,7 +12,7 @@ import numpy as np
 import jax.numpy as jnp
 from hypothesis import given, settings, strategies as st
 
-from mini_parallel_tpu.ops import encode, kadane, packed, sw
+from mini_parallel.ops import encode, kadane, packed, sw
 
 settings.register_profile("ci", max_examples=25, deadline=None)
 settings.register_profile("deep", max_examples=200, deadline=None)
@@ -76,7 +76,7 @@ def test_kadane_parity_matches_reference_emulation(a, b):
 
 @given(st.lists(dna, min_size=1, max_size=8), st.integers(3, 8))
 def test_kmer_counts_match_golden(seqs, k):
-    from mini_parallel_tpu.ops import kmer
+    from mini_parallel.ops import kmer
 
     reads = [s.encode() for s in seqs]
     pad = -(-max(max((len(r) for r in reads), default=1), k + 1) // 8) * 8
@@ -95,8 +95,8 @@ dna1 = st.text(alphabet="ACGT", min_size=1, max_size=32)
 
 @given(dna1, dna1, st.lists(st.integers(5, 42), min_size=32, max_size=32))
 def test_pairhmm_kernel_matches_oracle(read, hap, qlist):
-    from mini_parallel_tpu.ops import pairhmm
-    from mini_parallel_tpu.ops.pairhmm_pallas import pairhmm_log10_batch
+    from mini_parallel.ops import pairhmm
+    from mini_parallel.ops.pairhmm import pairhmm_log10_batch
 
     q = np.asarray(qlist[: len(read)], np.float64)
     want = pairhmm.pairhmm_forward_numpy(read.encode(), q, hap.encode())
@@ -111,19 +111,17 @@ def test_pairhmm_kernel_matches_oracle(read, hap, qlist):
 def test_sw_long_strips_match_quadratic(a, b):
     """Column-strip engine == quadratic golden on arbitrary small pairs
     (wavefront never filling the strip, ragged geometry, empty inputs)."""
-    from mini_parallel_tpu.ops.sw_long import sw_score_long
+    from mini_parallel.ops.sw_long import sw_score_long
 
-    got = sw_score_long(a.encode(), b.encode(), sb=8, blk=512,
-                        interpret=True)
+    got = sw_score_long(a.encode(), b.encode(), width=1024, blk=512)
     assert got == sw.sw_score_numpy(a, b)
 
 
 @given(dna, dna)
 def test_sw_affine_long_strips_match_gotoh(a, b):
-    from mini_parallel_tpu.ops.sw_long import sw_affine_score_long
+    from mini_parallel.ops.sw_long import sw_affine_score_long
 
-    got = sw_affine_score_long(a.encode(), b.encode(), sb=8, blk=512,
-                               interpret=True)
+    got = sw_affine_score_long(a.encode(), b.encode(), width=1024, blk=512)
     assert got == sw.sw_affine_numpy(a, b)
 
 
@@ -140,7 +138,7 @@ def test_merge_sorted_arrays_counter_oracle(ta, tb, sort_b):
     fallback (one side unsorted / duplicated)."""
     from collections import Counter
 
-    from mini_parallel_tpu.models.kmer_model import (
+    from mini_parallel.models.kmer_model import (
         _combined_keys, merge_sorted_arrays)
 
     def triple(items, sort):
@@ -194,7 +192,7 @@ def test_pad_batch_flat_matches_pad_batch_fuzz(rows, which_pad):
 def test_qual_mask_flat_matches_list_path_fuzz(quals, minq, pad):
     """Vectorized flat qual mask == the per-read list path, incl. quals
     longer and shorter than pad and empty quals."""
-    from mini_parallel_tpu.models.variant_prep import VariantPrepEngine
+    from mini_parallel.models.variant_prep import VariantPrepEngine
 
     eng = VariantPrepEngine.__new__(VariantPrepEngine)
     eng.min_base_quality = minq

@@ -5,7 +5,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.ops import encode, kadane
+from mini_parallel.ops import encode, kadane
 from tests.conftest import random_dna
 
 

@@ -4,10 +4,10 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.io import fastq
-from mini_parallel_tpu.models.kmer_model import KmerEngine
-from mini_parallel_tpu.ops import encode, kmer
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.io import fastq
+from mini_parallel.models.kmer_model import KmerEngine
+from mini_parallel.ops import encode, kmer
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 
@@ -127,7 +127,7 @@ def test_device_accumulator_matches_host_merge(rng):
     flush, a shape change, and duplicate keys across batches."""
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.ops.kmer import DeviceKmerAccumulator
+    from mini_parallel.ops.kmer import DeviceKmerAccumulator
 
     acc = DeviceKmerAccumulator(capacity=1 << 12, staging_batches=2)
     want: dict = {}
@@ -157,7 +157,7 @@ def test_device_accumulator_spill_exact(rng):
     """Overflowing the device capacity spills to host and stays exact."""
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.ops.kmer import DeviceKmerAccumulator
+    from mini_parallel.ops.kmer import DeviceKmerAccumulator
 
     acc = DeviceKmerAccumulator(capacity=64, staging_batches=1)
     want: dict = {}
@@ -208,7 +208,7 @@ def test_kmer_engine_device_accumulate_spill_matches(tmp_path, rng):
 def test_merge_sorted_arrays_matches_counter(rng):
     from collections import Counter
 
-    from mini_parallel_tpu.models.kmer_model import merge_sorted_arrays
+    from mini_parallel.models.kmer_model import merge_sorted_arrays
 
     def rand_triple(n):
         hi = rng.integers(0, 50, n).astype(np.int32)
@@ -235,7 +235,7 @@ def test_merge_sorted_arrays_rank_merge_and_fast_paths(rng):
     limbs with the int32 sign bit set (device order is SIGNED)."""
     from collections import Counter
 
-    from mini_parallel_tpu.models.kmer_model import merge_sorted_arrays
+    from mini_parallel.models.kmer_model import merge_sorted_arrays
 
     def sorted_triple(n):
         # signed int32 hi limbs spanning negative (k=31) and positive
@@ -272,7 +272,7 @@ def test_merge_sorted_arrays_rank_merge_and_fast_paths(rng):
     b_hi = np.concatenate([a[0][o], b[0]])
     b_lo = np.concatenate([a[1][o], b[1]])
     b_ct = np.concatenate([a[2][o] * 10, b[2]])
-    from mini_parallel_tpu.models.kmer_model import _combined_keys
+    from mini_parallel.models.kmer_model import _combined_keys
 
     srt = np.argsort(_combined_keys(b_hi.astype(np.int32),
                                     b_lo.astype(np.int32)))
@@ -325,7 +325,7 @@ def test_kmer_checkpoint_resume_exact(tmp_path, rng, device_acc):
         fastq.iter_read_chunks = real_iter
         fastq.iter_flat_chunks = real_flat
 
-    from mini_parallel_tpu.models.kmer_model import load_kmer_checkpoint
+    from mini_parallel.models.kmer_model import load_kmer_checkpoint
 
     arrays, meta = load_kmer_checkpoint(ckpt)
     assert meta["chunks_done"] == 4 and meta["total_reads"] == 20
@@ -535,7 +535,7 @@ def test_rank_merge_runs_exact(rng):
     """Tree rank-merge of R sorted runs == a full sort (duplicates kept)."""
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.ops.kmer import _rank_merge_runs
+    from mini_parallel.ops.kmer import _rank_merge_runs
 
     R, L = 8, 64
     hi = rng.integers(0, 5, (R, L)).astype(np.int32)
@@ -560,9 +560,9 @@ def test_rank_merge_runs_exact(rng):
 
 
 def test_summary_mode_matches_python_oracle(tmp_path):
-    from mini_parallel_tpu.io import fastq as fq
-    from mini_parallel_tpu.models.kmer_model import KmerEngine
-    from mini_parallel_tpu.utils.config import Config
+    from mini_parallel.io import fastq as fq
+    from mini_parallel.models.kmer_model import KmerEngine
+    from mini_parallel.utils.config import Config
 
     rng = np.random.default_rng(17)
     reads = ["".join(rng.choice(list("ACGT"), size=60)) for _ in range(300)]
@@ -590,9 +590,9 @@ def test_summary_mode_matches_python_oracle(tmp_path):
 
 
 def test_summary_mode_spill_falls_back_to_exact_drain(tmp_path):
-    from mini_parallel_tpu.io import fastq as fq
-    from mini_parallel_tpu.models.kmer_model import KmerEngine
-    from mini_parallel_tpu.utils.config import Config
+    from mini_parallel.io import fastq as fq
+    from mini_parallel.models.kmer_model import KmerEngine
+    from mini_parallel.utils.config import Config
 
     rng = np.random.default_rng(19)
     reads = ["".join(rng.choice(list("ACGT"), size=40)) for _ in range(200)]
@@ -628,9 +628,9 @@ def test_spill_fold_failure_poisons_accumulator(rng, monkeypatch):
 
 
 def test_summary_mode_counts_and_dump_raise(tmp_path):
-    from mini_parallel_tpu.io import fastq as fq
-    from mini_parallel_tpu.models.kmer_model import KmerEngine
-    from mini_parallel_tpu.utils.config import Config
+    from mini_parallel.io import fastq as fq
+    from mini_parallel.models.kmer_model import KmerEngine
+    from mini_parallel.utils.config import Config
 
     reads = ["ACGTACGTACGTACGT"] * 30
     path = str(tmp_path / "c.fastq.gz")
@@ -644,3 +644,15 @@ def test_summary_mode_counts_and_dump_raise(tmp_path):
         res.write_counts(str(tmp_path / "dump.tsv"))
     assert res.top(5)  # summary accessors still work
     assert int(res.histogram(64).sum()) == res.distinct_kmers
+
+
+@pytest.mark.parametrize("bytes_limit,want", [
+    (None, 1 << 20),               # runtime reports no limit
+    (1 << 28, 1 << 20),            # small device: the floor
+    (16 * (1 << 30), 1 << 25),     # 16 GiB
+    (60_000_000_000, 1 << 26),     # an 80 GB card at 3/4 reserved
+])
+def test_capacity_from_bytes_limit(bytes_limit, want):
+    from mini_parallel.models.kmer_model import capacity_for
+
+    assert capacity_for(bytes_limit) == want

@@ -18,7 +18,7 @@ import sys
 
 import pytest
 
-from mini_parallel_tpu.io import fastq
+from mini_parallel.io import fastq
 from tests.conftest import random_dna
 
 _WORKER = r"""
@@ -26,9 +26,9 @@ import json, os, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.parallel import distributed
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.parallel import distributed
+from mini_parallel.utils.config import Config
 
 out_path = sys.argv[1]
 cfg = Config(

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fastq
+from mini_parallel.io import fastq
 from tests.conftest import random_dna
 
-native = pytest.importorskip("mini_parallel_tpu.native")
+native = pytest.importorskip("mini_parallel.native")
 if not native.available():
     pytest.skip("native toolchain unavailable", allow_module_level=True)
 
-from mini_parallel_tpu.native import fastq_native, kmer_store  # noqa: E402
+from mini_parallel.native import fastq_native, kmer_store  # noqa: E402
 
 
 @pytest.fixture
@@ -106,8 +106,8 @@ def test_kmer_store_growth(rng):
 def test_native_quals_matches_python(tmp_path, rng):
     import gzip
 
-    from mini_parallel_tpu.io import fastq
-    from mini_parallel_tpu.native import available, fastq_native
+    from mini_parallel.io import fastq
+    from mini_parallel.native import available, fastq_native
 
     if not available():
         import pytest
@@ -137,8 +137,8 @@ def test_native_quals_matches_python(tmp_path, rng):
 def test_native_quals_truncated_final_record(tmp_path):
     import gzip
 
-    from mini_parallel_tpu.io import fastq
-    from mini_parallel_tpu.native import available
+    from mini_parallel.io import fastq
+    from mini_parallel.native import available
 
     if not available():
         import pytest
@@ -156,8 +156,8 @@ def test_native_quals_truncated_final_record(tmp_path):
 def test_quals_iter_falls_back_when_native_unavailable(tmp_path, monkeypatch):
     # a LOADER failure (NativeUnavailable) must fall through to the Python
     # decoder; only real file-I/O errors abort
-    from mini_parallel_tpu.io import fastq
-    from mini_parallel_tpu.native import fastq_native
+    from mini_parallel.io import fastq
+    from mini_parallel.native import fastq_native
 
     path = str(tmp_path / "x.fastq.gz")
     fastq.write_fastq(path, [b"ACGTACGT", b"TTTTCCCC"])
@@ -252,7 +252,7 @@ def test_decode_planes_native_matches_numpy(rng):
     import jax.numpy as jnp
     import numpy as np
 
-    from mini_parallel_tpu.ops import kmer
+    from mini_parallel.ops import kmer
 
     for s, allones in [(20, True), (20, False), (32, False)]:
         n = 4096
@@ -271,7 +271,7 @@ def test_decode_planes_native_matches_numpy(rng):
             jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(ct), kp, cp, s=s))
         key0 = (int(mx[3]) << 32) | int(mx[4])
         try:
-            from mini_parallel_tpu.native.kmer_store import (
+            from mini_parallel.native.kmer_store import (
                 decode_planes_native)
             nat = decode_planes_native(planes, n, kp, cp,
                                        kmer._biased_key0(key0, s), s)

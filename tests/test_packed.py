@@ -6,9 +6,9 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.ops import encode, kadane, packed, sw
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.ops import encode, kadane, packed, sw
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.utils.config import Config
 
 
 def _random_batch(rng, B, L, pad_value, n_frac=0.05, lower_frac=0.02):
@@ -137,7 +137,7 @@ def test_packed_sharded_matches(mesh8):
 
 
 def test_packed_wgs_step_matches_unpacked(mesh8):
-    from mini_parallel_tpu.parallel import pipeline
+    from mini_parallel.parallel import pipeline
 
     rng = np.random.default_rng(6)
     arr_a, len_a = _random_batch(rng, 16, 32, int(encode.PAD_A), n_frac=0.1)
@@ -164,7 +164,7 @@ def test_packed_wgs_step_matches_unpacked(mesh8):
 
 def test_native_packer_matches_numpy():
     """libpack2bit.so output must be identical to the NumPy fallback."""
-    from mini_parallel_tpu.ops import packed as pk
+    from mini_parallel.ops import packed as pk
 
     lib = pk._native()
     if lib is None:

@@ -3,8 +3,8 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.ops import pairhmm
-from mini_parallel_tpu.ops.pairhmm_pallas import pairhmm_log10_batch
+from mini_parallel.ops import pairhmm
+from mini_parallel.ops.pairhmm import pairhmm_log10_batch
 from tests.conftest import random_dna
 
 
@@ -108,11 +108,8 @@ def test_genotype_likelihoods_model():
 def test_pairhmm_sharded_matches_local(rng, mesh8):
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.ops import encode
-    from mini_parallel_tpu.ops.pairhmm_pallas import (
-        make_pairhmm_sharded,
-        pairhmm_batch_pallas,
-    )
+    from mini_parallel.ops import encode
+    from mini_parallel.ops.pairhmm import make_pairhmm_sharded, pairhmm_batch
 
     B = 16  # 2 rows per device on the 8-device mesh
     reads, haps = [], []
@@ -125,7 +122,7 @@ def test_pairhmm_sharded_matches_local(rng, mesh8):
     err = np.full((B, 32), 1e-2, np.float32)
     args = (jnp.asarray(arr_r), jnp.asarray(err), jnp.asarray(arr_h),
             jnp.asarray(la), jnp.asarray(lb))
-    local = np.asarray(pairhmm_batch_pallas(*args))
+    local = np.asarray(pairhmm_batch(*args))
     sharded = np.asarray(make_pairhmm_sharded(mesh8)(*args))
     np.testing.assert_allclose(sharded, local, rtol=0, atol=1e-6)
 

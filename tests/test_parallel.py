@@ -5,9 +5,9 @@ import jax
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.ops import encode, kadane, sw
-from mini_parallel_tpu.parallel import mesh as mesh_mod
-from mini_parallel_tpu.parallel import pipeline
+from mini_parallel.ops import encode, kadane, sw
+from mini_parallel.parallel import mesh as mesh_mod
+from mini_parallel.parallel import pipeline
 from tests.conftest import random_dna
 
 
@@ -133,7 +133,7 @@ def test_wgs_step_kmer_hist(mesh8):
         mesh8, (jnp.asarray(arr_a), jnp.asarray(arr_b),
                 jnp.asarray(len_a), jnp.asarray(len_b)))
     stats = jax.device_get(step(*args))
-    from mini_parallel_tpu.ops.kmer import count_kmers_python
+    from mini_parallel.ops.kmer import count_kmers_python
 
     golden = count_kmers_python(reads_a, k=21)
     assert int(np.asarray(stats["kmer_hist"]).sum()) == sum(golden.values())

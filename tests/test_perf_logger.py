@@ -2,7 +2,7 @@ import json
 import os
 import time
 
-from mini_parallel_tpu.utils.perf_logger import (
+from mini_parallel.utils.perf_logger import (
     SystemMonitors,
     summarize_monitor_logs,
     system_monitors,
@@ -70,7 +70,7 @@ def test_summarize_queue_probe_utilization(tmp_path):
     """The latency-probe rows produce an honest busy-fraction estimate."""
     import json
 
-    from mini_parallel_tpu.utils.perf_logger import summarize_monitor_logs
+    from mini_parallel.utils.perf_logger import summarize_monitor_logs
 
     rows = []
     # The probe BLOCKS the sampler, so a 100 s busy window is ONE sample
@@ -102,8 +102,8 @@ def test_utilization_estimators_reconciliation(tmp_path):
     import json
     import time as _t
 
-    from mini_parallel_tpu.utils import bench_tracker as bt
-    from mini_parallel_tpu.utils.perf_logger import summarize_monitor_logs
+    from mini_parallel.utils import bench_tracker as bt
+    from mini_parallel.utils.perf_logger import summarize_monitor_logs
 
     # --- scenario A: host-bound. Drains block 2 s of a 10 s run (wire
     # RTT), but the device queue is idle at every probe.

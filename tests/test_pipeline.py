@@ -7,12 +7,12 @@ import os
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fastq
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.models.wgs import process_full_wgs_dataset
-from mini_parallel_tpu.ops import kadane, sw
-from mini_parallel_tpu.utils.checkpoint import CheckpointState, deterministic_run_id
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.io import fastq
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.models.wgs import process_full_wgs_dataset
+from mini_parallel.ops import kadane, sw
+from mini_parallel.utils.checkpoint import CheckpointState, deterministic_run_id
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 
@@ -245,7 +245,7 @@ def test_full_wgs_failure_saves_partial_checkpoint(tmp_path, cfg, rng, monkeypat
 
 
 def test_cli_direct_mode(capsys):
-    from mini_parallel_tpu.cli import main
+    from mini_parallel.cli import main
 
     rc = main(["-1", "ACGT", "-2", "ACGA", "--allow-cpu"])
     assert rc == 0
@@ -253,7 +253,7 @@ def test_cli_direct_mode(capsys):
 
 
 def test_cli_direct_sw_mode(capsys):
-    from mini_parallel_tpu.cli import main
+    from mini_parallel.cli import main
 
     rc = main(["-1", "ACGT", "-2", "ACGT", "--mode", "sw", "--allow-cpu"])
     assert rc == 0
@@ -267,7 +267,7 @@ def test_cli_test_wgs(tmp_path, rng, monkeypatch, capsys):
     monkeypatch.setenv("WGS_DATA_DIR", str(tmp_path))
     monkeypatch.setenv("WGS_SAMPLE_ID", "TEST")
     monkeypatch.setenv("GPU_CHUNK_SIZE_READS", "10")
-    from mini_parallel_tpu.cli import main
+    from mini_parallel.cli import main
 
     rc = main(["--test-wgs", "--allow-cpu"])
     out = capsys.readouterr().out
@@ -278,7 +278,7 @@ def test_cli_pair_files(tmp_path, rng, monkeypatch, capsys):
     f1 = make_lane(tmp_path, "a.fastq.gz", [random_dna(rng, 30)] * 4)
     f2 = make_lane(tmp_path, "b.fastq.gz", [random_dna(rng, 30)] * 4)
     monkeypatch.setenv("GPU_CHUNK_SIZE_READS", "10")
-    from mini_parallel_tpu.cli import main
+    from mini_parallel.cli import main
 
     rc = main(["--files", "-1", f1, "-2", f2, "--allow-cpu"])
     assert rc == 0
@@ -286,7 +286,7 @@ def test_cli_pair_files(tmp_path, rng, monkeypatch, capsys):
 
 
 def test_cli_no_args_prints_help(capsys):
-    from mini_parallel_tpu.cli import main
+    from mini_parallel.cli import main
 
     assert main([]) == 2
 
@@ -294,7 +294,7 @@ def test_cli_no_args_prints_help(capsys):
 def test_self_align_skips_failed_chunks(tmp_path, rng, cfg, monkeypatch):
     # aligner.rs:284-287 parity: a chunk that blows the device budget is
     # logged and skipped (scores 0); the rest of the file still scores.
-    from mini_parallel_tpu.utils import system_info
+    from mini_parallel.utils import system_info
 
     reads = [random_dna(rng, 300) for _ in range(15)]           # 3 good chunks
     monster_chunk = [random_dna(rng, 300_000)] + [random_dna(rng, 300)] * 4
@@ -302,7 +302,7 @@ def test_self_align_skips_failed_chunks(tmp_path, rng, cfg, monkeypatch):
 
     info = system_info.SystemInfo(hbm_bytes_limit=3 * 1024 * 1024)
     monkeypatch.setattr(
-        "mini_parallel_tpu.utils.system_info.get_system_info", lambda: info
+        "mini_parallel.utils.system_info.get_system_info", lambda: info
     )
     eng = AlignmentEngine(cfg, mode="kadane")
     logs = []
@@ -315,14 +315,14 @@ def test_self_align_skips_failed_chunks(tmp_path, rng, cfg, monkeypatch):
 
 def test_device_memory_guard(monkeypatch):
     # mirror of aligner.rs:436-456: oversized launches error descriptively
-    from mini_parallel_tpu.models import alignment
-    from mini_parallel_tpu.utils import system_info
+    from mini_parallel.models import alignment
+    from mini_parallel.utils import system_info
 
     info = system_info.SystemInfo(hbm_bytes_limit=3 * 1024 * 1024)  # tiny HBM
     monkeypatch.setattr(alignment, "check_device_budget",
                         alignment.check_device_budget)  # keep real fn
     monkeypatch.setattr(
-        "mini_parallel_tpu.utils.system_info.get_system_info", lambda: info
+        "mini_parallel.utils.system_info.get_system_info", lambda: info
     )
     with pytest.raises(alignment.SequenceTooLarge, match="Batch too large"):
         alignment.check_device_budget(10 * 1024 * 1024)
@@ -330,7 +330,7 @@ def test_device_memory_guard(monkeypatch):
     # unknown HBM: guard is a no-op
     info2 = system_info.SystemInfo(hbm_bytes_limit=None)
     monkeypatch.setattr(
-        "mini_parallel_tpu.utils.system_info.get_system_info", lambda: info2
+        "mini_parallel.utils.system_info.get_system_info", lambda: info2
     )
     alignment.check_device_budget(1 << 40)
 
@@ -350,7 +350,7 @@ def test_full_wgs_retries_recover_transient_failure(tmp_path, cfg, rng,
         for i, chunk in enumerate(real_flat(path, chunk_size, **kw)):
             if i == 3 and fails["left"]:
                 fails["left"] -= 1
-                raise RuntimeError("transient tunnel error")
+                raise RuntimeError("transient device error")
             yield chunk
 
     monkeypatch.setattr(fastq, "iter_flat_chunks", flaky_iter)
@@ -395,7 +395,7 @@ def test_score_accumulator_overflow_drain_exact(tmp_path, cfg, rng,
     before its int32 bound can wrap (round-5 review finding). Forcing a
     tiny limit makes every batch take the safety-drain path; scores must
     be identical to the unforced run."""
-    from mini_parallel_tpu.models import alignment as al
+    from mini_parallel.models import alignment as al
 
     reads = [random_dna(rng, 300) for _ in range(20)]
     path = str(tmp_path / "ov.fastq.gz")

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fastq
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.models.kmer_model import KmerEngine
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.io import fastq
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.models.kmer_model import KmerEngine
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 
@@ -56,7 +56,7 @@ def test_parity_chunk_dependence_matches_reference_semantics(lane):
 
 def test_sw_symmetry(rng):
     # SW(a, b) == SW(b, a)
-    from mini_parallel_tpu.ops import encode, sw
+    from mini_parallel.ops import encode, sw
     import jax.numpy as jnp
 
     ra = [random_dna(rng, int(rng.integers(5, 60))) for _ in range(10)]
@@ -72,7 +72,7 @@ def test_sw_symmetry(rng):
 
 def test_sw_substring_identity(rng):
     # a substring aligned against its source scores 2*len(substring)
-    from mini_parallel_tpu.ops import sw
+    from mini_parallel.ops import sw
 
     s = random_dna(rng, 200)
     sub = s[40:90]
@@ -81,7 +81,7 @@ def test_sw_substring_identity(rng):
 
 
 def test_revcomp_involution_engine(rng):
-    from mini_parallel_tpu.models.complementarity import _revcomp_batch
+    from mini_parallel.models.complementarity import _revcomp_batch
 
     reads = [random_dna(rng, 33) for _ in range(5)]
     assert _revcomp_batch(_revcomp_batch(reads)) == reads

@@ -3,10 +3,10 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fastq
-from mini_parallel_tpu.models.alignment import AlignmentEngine
-from mini_parallel_tpu.parallel.mesh import make_mesh
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.io import fastq
+from mini_parallel.models.alignment import AlignmentEngine
+from mini_parallel.parallel.mesh import make_mesh
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 

@@ -4,7 +4,7 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.ops import encode, sw
+from mini_parallel.ops import encode, sw
 from tests.conftest import random_dna
 
 

@@ -1,17 +1,17 @@
-"""Reads-vs-reference exhaustive SW kernel vs the quadratic golden DP."""
+"""Reads-vs-reference exhaustive SW scan vs the quadratic golden DP."""
 
 import numpy as np
 import jax.numpy as jnp
+import pytest
 
-from mini_parallel_tpu.ops import encode, sw
-from mini_parallel_tpu.ops.sw_pallas import sw_vs_ref_batch_pallas
+from mini_parallel.ops import encode, sw
 from tests.conftest import random_dna
 
 
 def _run(reads, ref, pad=64):
     arr, _ = encode.pad_batch(reads, pad_to=pad, pad_value=int(encode.PAD_A))
     ref_arr = np.frombuffer(ref, np.uint8)
-    s, p = sw_vs_ref_batch_pallas(jnp.asarray(arr), jnp.asarray(ref_arr))
+    s, p = sw.sw_vs_ref_batch(jnp.asarray(arr), jnp.asarray(ref_arr))
     return np.asarray(s), np.asarray(p)
 
 
@@ -56,3 +56,28 @@ def test_empty_read(rng):
     s, p = _run([b"", ref[10:30]], ref)
     assert s[0] == 0 and p[0] == -1
     assert s[1] == 40
+
+
+@pytest.mark.parametrize("m,n,B", [(8, 200, 5), (40, 41, 7), (64, 33, 3)])
+def test_scan_matches_golden_geometries(rng, m, n, B):
+    """Reads longer or shorter than the reference, ragged lengths, and a
+    planted copy per read: scores and smallest end positions exact."""
+    ref = random_dna(rng, n)
+    reads = []
+    for i in range(B):
+        L = int(rng.integers(1, m + 1))
+        if i % 2 == 0 and L <= n:
+            s0 = int(rng.integers(0, n - L + 1))
+            reads.append(ref[s0:s0 + L])
+        else:
+            reads.append(random_dna(rng, L))
+    s, p = _run(reads, ref, pad=m)
+    for k, r in enumerate(reads):
+        assert (s[k], p[k]) == sw.sw_vs_ref_numpy(r, ref), k
+
+
+def test_tied_ends_take_smallest_position():
+    """A read that matches twice scores once, at the earlier end."""
+    ref = b"ACGTTT" + b"GGCCAGT" + b"TTTT" + b"GGCCAGT" + b"A"
+    s, p = _run([b"GGCCAGT"], ref, pad=8)
+    assert (s[0], p[0]) == sw.sw_vs_ref_numpy(b"GGCCAGT", ref) == (14, 12)

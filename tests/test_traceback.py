@@ -4,8 +4,8 @@ import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from mini_parallel_tpu.ops import encode, sw
-from mini_parallel_tpu.ops.sw_traceback import (
+from mini_parallel.ops import encode, sw
+from mini_parallel.ops.sw_traceback import (
     Alignment,
     sw_align_batch,
     sw_align_numpy,
@@ -93,7 +93,7 @@ def test_no_alignment():
 
 def test_sw_positions_batch_matches_host_walk(rng):
     """Device traceback positions == host CIGAR application, incl. indels."""
-    from mini_parallel_tpu.ops.sw_traceback import (
+    from mini_parallel.ops.sw_traceback import (
         sw_align_batch, sw_positions_batch)
 
     reads_a, reads_b = [], []
@@ -132,75 +132,79 @@ def test_sw_positions_batch_matches_host_walk(rng):
         np.testing.assert_array_equal(pos[k], want, err_msg=f"read {k}")
 
 
-def test_pallas_moves_matches_scan(rng):
-    """sw_moves_batch_pallas (interpret) == sw_moves_batch: scores,
-    argmax (bd, bi), and every valid move in the packed tensor."""
-    import numpy as np
+def _positions_from_cigar(aln, width):
+    want = np.full(width, -1, np.int32)
+    if aln.score > 0:
+        qi, rj = aln.query_start, aln.ref_start
+        for count, op in aln.cigar_ops():
+            if op == "M":
+                want[qi:qi + count] = np.arange(rj, rj + count)
+                qi += count
+                rj += count
+            elif op == "I":
+                qi += count
+            else:
+                rj += count
+    return want
 
-    from mini_parallel_tpu.ops.sw_traceback import (
-        sw_moves_batch, sw_moves_batch_pallas)
 
-    B, M, N = 16, 24, 40
+def _related_batch(rng, B, M, N):
+    base = np.frombuffer(b"ACGT", np.uint8)
     a = np.full((B, M), int(encode.PAD_A), np.uint8)
     b = np.full((B, N), int(encode.PAD_B), np.uint8)
-    base = np.frombuffer(b"ACGT", np.uint8)
+    ra, rb = [], []
     for i in range(B):
         la = int(rng.integers(5, M)); lb = int(rng.integers(5, N))
         a[i, :la] = rng.choice(base, la)
-        b[i, :lb] = rng.choice(base, lb)
-    best0, bd0, bi0, mv0 = (np.asarray(x) for x in
-                            sw_moves_batch(jnp.asarray(a), jnp.asarray(b)))
-    best1, bd1, bi1, packed = (np.asarray(x) for x in sw_moves_batch_pallas(
-        jnp.asarray(a), jnp.asarray(b), interpret=True))
-    assert (best0 == best1).all()
-    assert (bd0 == bd1).all() and (bi0 == bi1).all()
-    D = mv0.shape[0]
-    for d in range(D):
-        slab = ((packed[d // 16].astype(np.uint32)
-                 >> np.uint32(2 * (d % 16))) & 3)[:M, :B].T
-        j = d - np.arange(M)[None, :]
-        valid = (j >= 0) & (j < N)
-        assert ((mv0[d] == slab) | ~valid).all(), d
+        if rng.random() < 0.7:  # related pair -> real gapped walks
+            mut = bytearray(a[i, :la].tobytes() * 2)[:lb]
+            for _ in range(3):
+                p = int(rng.integers(0, max(1, len(mut))))
+                mut[p:p + 1] = b""
+            seg = np.frombuffer(bytes(mut), np.uint8)[:lb]
+            b[i, :len(seg)] = seg
+            lb = len(seg)
+        else:
+            b[i, :lb] = rng.choice(base, lb)
+        ra.append(a[i, :la].tobytes())
+        rb.append(b[i, :lb].tobytes())
+    return ra, rb, jnp.asarray(a), jnp.asarray(b)
 
 
-def test_pallas_positions_matches_scan(rng):
-    """sw_positions_batch_pallas == sw_positions_batch on gapped pairs."""
-    import numpy as np
+def test_moves_match_golden_move_matrix(rng):
+    """Every valid move code sw_moves_batch emits equals the golden DP's
+    move for that cell (priority diag > up > left, stop at the floor)."""
+    from mini_parallel.ops.sw_traceback import DIAG, LEFT, STOP, UP, \
+        sw_moves_batch
 
-    from mini_parallel_tpu.ops.sw_traceback import (
-        sw_positions_batch, sw_positions_batch_pallas)
-
-    base = np.frombuffer(b"ACGT", np.uint8)
-    for (B, M, N) in [(16, 24, 40), (5, 40, 24)]:
-        a = np.full((B, M), int(encode.PAD_A), np.uint8)
-        b = np.full((B, N), int(encode.PAD_B), np.uint8)
-        for i in range(B):
-            la = int(rng.integers(5, M)); lb = int(rng.integers(5, N))
-            a[i, :la] = rng.choice(base, la)
-            if rng.random() < 0.7:  # related pair -> real gapped walks
-                mut = bytearray(a[i, :la].tobytes() * 2)[:lb]
-                for _ in range(3):
-                    p = int(rng.integers(0, max(1, len(mut))))
-                    mut[p:p + 1] = b""
-                seg = np.frombuffer(bytes(mut), np.uint8)[:lb]
-                b[i, :len(seg)] = seg
-            else:
-                b[i, :lb] = rng.choice(base, lb)
-        s0, p0 = (np.asarray(x) for x in
-                  sw_positions_batch(jnp.asarray(a), jnp.asarray(b)))
-        s1, p1 = (np.asarray(x) for x in
-                  sw_positions_batch_pallas(jnp.asarray(a), jnp.asarray(b)))
-        assert (s0 == s1).all() and (p0 == p1).all()
+    ra, rb, a, b = _related_batch(rng, 12, 24, 40)
+    best, bd, bi, moves = (np.asarray(x) for x in sw_moves_batch(a, b))
+    for k, (qa, qb) in enumerate(zip(ra, rb)):
+        m, n = len(qa), len(qb)
+        H = np.zeros((m + 1, n + 1), np.int64)
+        for i in range(1, m + 1):
+            for j in range(1, n + 1):
+                s = 2 if qa[i - 1] == qb[j - 1] else -1
+                diag, up = H[i - 1, j - 1] + s, H[i - 1, j] - 2
+                left = H[i, j - 1] - 2
+                h = max(0, diag, up, left)
+                H[i, j] = h
+                want = (STOP if h == 0 else DIAG if h == diag
+                        else UP if h == up else LEFT)
+                assert moves[i + j - 2, k, i - 1] == want, (k, i, j)
+        assert best[k] == H.max()
 
 
-def test_pallas_walk_vmem_gate():
-    """_best wrappers must route wide windows back to the scan path: the
-    Pallas walk holds the whole packed moves block in VMEM (~16 MB/core)."""
-    from mini_parallel_tpu.ops.sw_traceback import _pallas_walk_fits
+@pytest.mark.parametrize("B,M,N", [(16, 24, 40), (5, 40, 24)])
+def test_positions_match_golden_walk_gapped_pairs(rng, B, M, N):
+    """sw_positions_batch (the gapped pipeline's traceback) == the golden
+    DP's walk: scores and per-base reference positions."""
+    from mini_parallel.ops.sw_traceback import sw_positions_batch
 
-    assert _pallas_walk_fits(152, 184, affine=False)   # variant-prep window
-    assert _pallas_walk_fits(152, 184, affine=True)
-    assert not _pallas_walk_fits(1024, 4096, affine=False)  # ~168 MB block
-    assert not _pallas_walk_fits(1024, 4096, affine=True)
-    # exact-f32 guard: huge-but-thin windows also fall back, never raise
-    assert not _pallas_walk_fits(1 << 23, 1 << 23, affine=False)
+    ra, rb, a, b = _related_batch(rng, B, M, N)
+    score, pos = (np.asarray(x) for x in sw_positions_batch(a, b))
+    for k, (qa, qb) in enumerate(zip(ra, rb)):
+        want = sw_align_numpy(qa, qb)
+        assert score[k] == want.score, k
+        np.testing.assert_array_equal(pos[k], _positions_from_cigar(want, M),
+                                      err_msg=f"pair {k}")

@@ -3,14 +3,14 @@
 import numpy as np
 import pytest
 
-from mini_parallel_tpu.io import fasta, fastq
-from mini_parallel_tpu.models.complementarity import ComplementarityEngine
-from mini_parallel_tpu.models.variant_prep import (
+from mini_parallel.io import fasta, fastq
+from mini_parallel.models.complementarity import ComplementarityEngine
+from mini_parallel.models.variant_prep import (
     SEED_K,
     VariantPrepEngine,
     write_candidates_vcf,
 )
-from mini_parallel_tpu.utils.config import Config
+from mini_parallel.utils.config import Config
 from tests.conftest import random_dna
 
 RC = bytes.maketrans(b"ACGT", b"TGCA")
@@ -265,7 +265,7 @@ def test_variant_prep_rescue_recovers_seed_misses(tmp_path, rng, ref_and_reads):
 def test_variant_prep_multi_contig(tmp_path, rng):
     """Two contigs: reads map per contig, a SNP reports contig-local
     coordinates, spacers never become candidate sites."""
-    from mini_parallel_tpu.models.variant_prep import write_candidates_vcf
+    from mini_parallel.models.variant_prep import write_candidates_vcf
 
     c1 = random_dna(rng, 800)
     c2 = random_dna(rng, 600)
@@ -419,7 +419,7 @@ def test_variant_prep_gapped_affine_matches_linear_on_clean_indels(tmp_path):
 
 
 def test_complementarity_sharded_matches_local(tmp_path, rng, mesh8):
-    from mini_parallel_tpu.models.complementarity import ComplementarityEngine
+    from mini_parallel.models.complementarity import ComplementarityEngine
 
     r1 = [random_dna(rng, 40) for _ in range(19)]
     rc_tab = bytes.maketrans(b"ACGT", b"TGCA")
@@ -440,7 +440,7 @@ def test_complementarity_sharded_matches_local(tmp_path, rng, mesh8):
 
 
 def test_positions_to_cigar_shapes():
-    from mini_parallel_tpu.models.variant_prep import positions_to_cigar
+    from mini_parallel.models.variant_prep import positions_to_cigar
 
     # clean full-length match
     assert positions_to_cigar(np.arange(10, 20, dtype=np.int32), 10) == ("10M", 10)
@@ -458,7 +458,7 @@ def test_positions_to_cigar_shapes():
 
 
 def test_write_sam_end_to_end(tmp_path):
-    from mini_parallel_tpu.models.variant_prep import write_sam
+    from mini_parallel.models.variant_prep import write_sam
 
     rng = np.random.default_rng(42)
     ref = random_dna(rng, 900)
@@ -859,9 +859,9 @@ def test_map_reads_both_matches_two_pass(rng):
     short reads, and unmappable reads."""
     import jax.numpy as jnp
 
-    from mini_parallel_tpu.models.variant_prep import (
+    from mini_parallel.models.variant_prep import (
         SEED_K, ReferenceIndex, _map_reads, _map_reads_both, _revcomp_codes)
-    from mini_parallel_tpu.ops import encode
+    from mini_parallel.ops import encode
     from tests.conftest import random_dna
 
     ref = random_dna(rng, 5000)
